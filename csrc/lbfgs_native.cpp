@@ -1,6 +1,6 @@
 // lbfgs_native: sequential-f64 limited-memory quasi-Newton core.
 //
-// Native C++ component of the lbfgs_tpu framework with two roles:
+// Native C++ component of the lbfgs_jax framework with two roles:
 //
 //  1. Golden parity oracle.  The upstream reference (ybyygu/rust-lbfgs)
 //     computes every reduction as a sequential left-fold over f64; XLA
@@ -32,7 +32,7 @@
 namespace {
 
 // ---------------------------------------------------------------------
-// status codes — mirrors lbfgs_tpu/status.py
+// status codes — mirrors lbfgs_jax/status.py
 // ---------------------------------------------------------------------
 enum Status : int32_t {
   RUNNING = 0,
@@ -72,7 +72,7 @@ inline double msign(double v) {
 }
 
 // ---------------------------------------------------------------------
-// configuration — mirrors lbfgs_tpu/params.py (reference defaults)
+// configuration — mirrors lbfgs_jax/params.py (reference defaults)
 // ---------------------------------------------------------------------
 enum LsAlgo : int32_t {
   MORETHUENTE = 0,

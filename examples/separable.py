@@ -1,12 +1,12 @@
 """Custom objectives at full kernel speed via the factory (round 5).
 
 The reference accepts any closure at full speed (its eval boundary is
-objective-agnostic, ``src/core.rs:119-132``).  The TPU build's analog:
+objective-agnostic, ``src/core.rs:119-132``).  The JAX build's analog:
 ``make_fused_objective`` turns a per-block math body into a complete
 fused-kernel objective — trial/probe, OWL-QN variants, the one-kernel
 epilogues and the combine+probe fusions all generated.
 
-Run: python examples/separable.py          (TPU or CPU)
+Run: python examples/separable.py          (GPU or CPU)
 """
 
 import os
@@ -18,9 +18,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbfgs_tpu import lbfgs
-from lbfgs_tpu.models import separable
-from lbfgs_tpu.ops.factory import make_fused_objective
+from lbfgs_jax import lbfgs
+from lbfgs_jax.models import separable
+from lbfgs_jax.ops.factory import make_fused_objective
 
 
 def main():

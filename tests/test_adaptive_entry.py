@@ -1,18 +1,16 @@
-"""Adaptive line-search entry step (round-5 VERDICT item #2).
+"""Adaptive line-search entry step.
 
-Flag-gated TPU extension (``params.adaptive_entry_step`` /
+Flag-gated extension (``params.adaptive_entry_step`` /
 ``with_adaptive_entry_step``): under the unconstrained step policy the
 next search enters at ``clip(growth * last_accepted_step, 2^-16, 1.0)``
 instead of the reference-literal 1.0, cutting backtracking-ladder depth
-(PERF.md round-4 lever #1: 3.44 probes/iter at n=2^24).  Pinned here:
+(the OWL-QN Armijo ladder runs several probes per iteration).  Pinned
+here:
 
 - policy mechanics: the carried entry step follows the formula exactly;
 - defaults unchanged: growth=0 keeps the literal policy (existing suite
   pins the trajectories themselves);
-- ladder savings on a deep-ladder problem (stiff quadratic + Armijo);
-- combine+probe speculation at the PREDICTED step: with the fusion on,
-  first-trip probes are skipped under the adaptive policy too, and the
-  trajectory tracks the fusion-off adaptive run.
+- ladder savings on a deep-ladder problem (stiff quadratic + Armijo).
 """
 
 import os
@@ -21,11 +19,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.minimize import LbfgsState
-from lbfgs_tpu.models import rosenbrock, separable
-from lbfgs_tpu.ops import fused
-from lbfgs_tpu.orthantwise import Orthantwise
-from lbfgs_tpu.params import LbfgsParams, LineSearchAlgorithm
+from lbfgs_jax.minimize import LbfgsState
+from lbfgs_jax.models import rosenbrock, separable
+from lbfgs_jax.ops import fused
+from lbfgs_jax.orthantwise import Orthantwise
+from lbfgs_jax.params import LbfgsParams, LineSearchAlgorithm
 
 
 def _rand(shape, seed, scale=1.0):
@@ -91,7 +89,7 @@ def test_adaptive_no_regression_on_well_scaled():
 
 
 def test_adaptive_cuts_owlqn_ladder():
-    """The regime the extension exists for (PERF.md round-4 lever #1):
+    """The regime the extension exists for:
     OWL-QN Rosenbrock's Armijo ladder runs ~2 probes/iter under the
     literal policy; entering near the previous accepted step cuts total
     evaluations ~19% at this scale (measured 172 -> 140) without losing
@@ -113,47 +111,3 @@ def test_adaptive_cuts_owlqn_ladder():
     rep_ad = run(base.replace(adaptive_entry_step=2.0))
     assert rep_ad.neval < rep_lit.neval * 0.92, (rep_ad.neval, rep_lit.neval)
     assert rep_ad.fx == pytest.approx(rep_lit.fx, rel=1e-3)
-
-
-def test_probe_speculation_at_predicted_step(monkeypatch):
-    """With LBFGS_TPU_KERNELS=all the combine+probe fusion speculates at
-    the adaptive prediction: first-trip probe launches are skipped (the
-    probed step equals the entry step by construction), and the
-    trajectory tracks the fusion-off adaptive run."""
-    monkeypatch.setenv("LBFGS_TPU_KERNELS_INTERPRET", "1")
-    n = fused.MIN_FUSED_N
-    params = LbfgsParams(
-        epsilon=0.0, max_iterations=12, constrain_step_size=False,
-        adaptive_entry_step=2.0,
-    ).replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo)
-    x0 = rosenbrock.initial_point(n, dtype=jnp.float32)
-
-    def run():
-        st = LbfgsState.build(params, x0, rosenbrock.value_and_grad)
-        while not st.is_converged():
-            st.propagate()
-        return st.report()
-
-    calls = {"probe": 0}
-    orig = rosenbrock.value_and_grad.kernels.probe_pallas
-
-    def spy(*a, **kw):
-        calls["probe"] += 1
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(rosenbrock.value_and_grad.kernels, "probe_pallas",
-                        spy)
-    monkeypatch.setenv("LBFGS_TPU_KERNELS", "all")
-    rep_fused = run()
-    fused_probe_traces = calls["probe"]
-
-    monkeypatch.delenv("LBFGS_TPU_KERNELS")
-    calls["probe"] = 0
-    rep_plain = run()
-    # fusion-on skips the first-trip probe inside the cond's taken branch:
-    # the TRACED probe count is the same (both cond branches trace), so
-    # assert on the trajectory instead — identical iteration count and
-    # fx at reassociation tolerance
-    del fused_probe_traces
-    assert rep_fused.niter == rep_plain.niter
-    assert rep_fused.fx == pytest.approx(rep_plain.fx, rel=5e-2, abs=1e-3)

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import Status, lbfgs
-from lbfgs_tpu.models import rosenbrock
+from lbfgs_jax import Status, lbfgs
+from lbfgs_jax.models import rosenbrock
 
 
 def test_batched_matches_single():

@@ -1,11 +1,11 @@
-"""Checkpoint portability across device configurations (VERDICT round-3
-weak #4): the history storage layout depends on ``jax.device_count()``
-(``core.hist_store_shape`` — ring-major [m, n/128, 128] only when the row
-axis divides over the devices), so a state saved under one device count
-may be shape-incompatible with a template built under another.
-``utils.checkpoint.load_state`` canonicalizes by reshape (the layouts are
-element-order-identical); these tests pin the round trip in BOTH
-directions and the config-mismatch detection.
+"""Checkpoint portability across history layouts: the storage shape
+depends on n alone (``core.hist_store_shape``: ring-major [m, n/128, 128]
+when lane-aligned, else flat [m, n]), never on the devices present, but a
+checkpoint written in the flat layout must still restore into a
+ring-major template and back.  ``utils.checkpoint.load_state``
+canonicalizes by reshape (the layouts are element-order-identical); these
+tests pin the round trip in BOTH directions and the config-mismatch
+detection.
 
 Reference anchor: the resumable state machine being extended
 (``src/lbfgs.rs:443-499``).
@@ -15,13 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.core import hist_store_shape
-from lbfgs_tpu.minimize import LbfgsState
-from lbfgs_tpu.models import rosenbrock
-from lbfgs_tpu.params import LbfgsParams
-from lbfgs_tpu.utils.checkpoint import load_state, save_state
+from lbfgs_jax.core import hist_store_shape
+from lbfgs_jax.minimize import LbfgsState
+from lbfgs_jax.models import rosenbrock
+from lbfgs_jax.params import LbfgsParams
+from lbfgs_jax.utils.checkpoint import load_state, save_state
 
-N = 1024  # lane-aligned; rows = 8 divides the 8-device test runtime
+N = 1024  # lane-aligned: ring-major history
 M = 6
 
 
@@ -38,19 +38,23 @@ def _steps(solver, k):
 
 
 def _force_flat(monkeypatch):
-    """Make hist_store_shape fall back to flat [m, n] (simulates a device
-    count that does not divide the row axis, e.g. restoring a 1-device
-    checkpoint on a 3-device pod slice)."""
-    import jax
+    """Build states with the flat [m, n] history (the layout of a
+    checkpoint written for an unaligned-layout configuration)."""
+    import lbfgs_jax.solver as solver
 
-    monkeypatch.setattr(jax, "device_count", lambda *a, **k: 3)
+    monkeypatch.setattr(solver, "hist_store_shape", lambda m, n: (m, n))
 
 
 def test_layouts_differ_by_device_count(monkeypatch):
+    """They no longer do: the layout is a function of n alone, so a
+    one-device run on a many-device host keeps the one-device layout."""
+    import jax
+
     ring = hist_store_shape(M, N)
     assert ring == (M, N // 128, 128)
-    _force_flat(monkeypatch)
-    assert hist_store_shape(M, N) == (M, N)
+    monkeypatch.setattr(jax, "device_count", lambda *a, **k: 3)
+    assert hist_store_shape(M, N) == ring
+    assert hist_store_shape(M, N + 2) == (M, N + 2)
 
 
 @pytest.mark.parametrize("direction", ["ring_to_flat", "flat_to_ring"])

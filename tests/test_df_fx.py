@@ -1,5 +1,5 @@
 """x64-free wide objective carry: the double-float (two-f32) fx
-(round-5 VERDICT item #6).
+(an extension).
 
 ``params.fx_wide`` without ``jax_enable_x64`` now carries the objective
 scalar as a ``(2,)``-f32 double-float pair (``ops/df.py``, ~48-bit
@@ -24,10 +24,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.models import separable
-from lbfgs_tpu.ops import df, fused
-from lbfgs_tpu.orthantwise import Orthantwise
-from lbfgs_tpu.params import LbfgsParams, LineSearchAlgorithm
+from lbfgs_jax.models import separable
+from lbfgs_jax.ops import df, fused
+from lbfgs_jax.orthantwise import Orthantwise
+from lbfgs_jax.params import LbfgsParams, LineSearchAlgorithm
 
 
 def test_two_sum_exact():
@@ -78,7 +78,7 @@ def _offset_rosenbrock(n, off=4.0e7):
     """Extended Rosenbrock shifted to the n=1e8 OWL-QN fx magnitude
     (~4e7, where f32's ULP is 4): the controlled small-scale stand-in
     for the objective-resolution floor (PERF.md round 4)."""
-    from lbfgs_tpu.models import rosenbrock
+    from lbfgs_jax.models import rosenbrock
 
     OFF = jnp.float32(off)
 
@@ -98,8 +98,8 @@ def test_df32_reproduces_f64_mode_trajectory():
     plain f32 carry deviates (its Armijo comparisons cannot see the
     sub-ULP decreases; measured here: 66 iters / fx 40007148.0 vs the
     wide modes' 88 / 40007147.543...)."""
-    from lbfgs_tpu.minimize import LbfgsState
-    from lbfgs_tpu.models import rosenbrock
+    from lbfgs_jax.minimize import LbfgsState
+    from lbfgs_jax.models import rosenbrock
 
     n = 1 << 14
     base = dict(
@@ -144,8 +144,8 @@ def test_df32_morethuente_tracks_f64_mode():
     matches the f64 mode's iteration/evaluation counts and resolves fx
     below the f32 ULP (4 at this magnitude), where the plain f32 carry
     reads a flat 40000000.0."""
-    from lbfgs_tpu.minimize import LbfgsState
-    from lbfgs_tpu.models import rosenbrock
+    from lbfgs_jax.minimize import LbfgsState
+    from lbfgs_jax.models import rosenbrock
 
     n = 1 << 14
 
@@ -176,7 +176,7 @@ def test_df32_morethuente_tracks_f64_mode():
 
 
 def test_df32_rejects_speculative():
-    from lbfgs_tpu.minimize import LbfgsState
+    from lbfgs_jax.minimize import LbfgsState
 
     with jax.enable_x64(False):
         n = 256
@@ -197,7 +197,7 @@ def test_df32_rejects_speculative():
 def test_df32_backtracking_plain_converges():
     """Non-OWL-QN df32 path (plain Armijo): sane end-to-end behavior and
     a df-carried fx through the whole run."""
-    from lbfgs_tpu.minimize import minimize_jit
+    from lbfgs_jax.minimize import minimize_jit
 
     with jax.enable_x64(False):
         n = 4096

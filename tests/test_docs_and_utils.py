@@ -11,7 +11,7 @@ import pytest
 
 def test_package_docstring_example():
     """The package-docstring quick start runs as written."""
-    from lbfgs_tpu import lbfgs, default_evaluate, default_progress
+    from lbfgs_jax import lbfgs, default_evaluate, default_progress
 
     n = 100
     x0 = jnp.zeros(n).at[0::2].set(-1.2).at[1::2].set(1.0)
@@ -25,7 +25,7 @@ def test_package_docstring_example():
 
 
 def test_owlqn_docstring_variant():
-    from lbfgs_tpu import lbfgs, default_evaluate
+    from lbfgs_jax import lbfgs, default_evaluate
 
     x0 = jnp.ones(100)
     report = (
@@ -37,10 +37,10 @@ def test_owlqn_docstring_variant():
 
 
 def test_checkpoint_save_load_roundtrip():
-    from lbfgs_tpu.minimize import LbfgsState
-    from lbfgs_tpu.models import rosenbrock
-    from lbfgs_tpu.params import LbfgsParams
-    from lbfgs_tpu.utils.checkpoint import load_state, save_state
+    from lbfgs_jax.minimize import LbfgsState
+    from lbfgs_jax.models import rosenbrock
+    from lbfgs_jax.params import LbfgsParams
+    from lbfgs_jax.utils.checkpoint import load_state, save_state
 
     x0 = rosenbrock.initial_point(20)
     a = LbfgsState.build(LbfgsParams(), x0, rosenbrock.value_and_grad)
@@ -63,7 +63,7 @@ def test_checkpoint_save_load_roundtrip():
 
 
 def test_csv_loader_matches_reference_format():
-    from lbfgs_tpu.utils.csvio import read_r_csv
+    from lbfgs_jax.utils.csvio import read_r_csv
 
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "t.csv")
@@ -75,7 +75,7 @@ def test_csv_loader_matches_reference_format():
 
 def test_minimize_pytree():
     import jax.numpy as jnp
-    from lbfgs_tpu import lbfgs, minimize_pytree
+    from lbfgs_jax import lbfgs, minimize_pytree
 
     x0 = {"w": jnp.zeros((3, 3)), "b": jnp.ones(3)}
 
@@ -90,7 +90,7 @@ def test_minimize_pytree():
 
 def test_minimize_pytree_jit_driver():
     import jax.numpy as jnp
-    from lbfgs_tpu import lbfgs, minimize_pytree
+    from lbfgs_jax import lbfgs, minimize_pytree
 
     x0 = [jnp.zeros(5), jnp.zeros(2)]
 
@@ -104,8 +104,8 @@ def test_minimize_pytree_jit_driver():
 def test_profiling_trace_and_timed(tmp_path):
     import jax.numpy as jnp
 
-    from lbfgs_tpu import lbfgs, default_evaluate
-    from lbfgs_tpu.utils.profiling import timed, trace
+    from lbfgs_jax import lbfgs, default_evaluate
+    from lbfgs_jax.utils.profiling import timed, trace
 
     x0 = jnp.zeros(16).at[0::2].set(-1.2).at[1::2].set(1.0)
     run = lambda: lbfgs().with_max_iterations(3).minimize_jit(x0, default_evaluate())

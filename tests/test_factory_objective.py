@@ -1,48 +1,31 @@
-"""The objective-agnostic fused-kernel factory (round-5 VERDICT item #1).
+"""The objective-agnostic factory (``ops/factory.make_fused_objective``).
 
-``ops/factory.make_fused_objective(block_fn)`` must give ANY separable
-objective the complete ``__lbfgs_*__`` kernel protocol with zero bespoke
-kernel code — the TPU answer to the reference's objective-agnostic eval
+Any separable objective gets the complete ``__lbfgs_*__`` protocol from a
+per-block body — the answer to the reference's objective-agnostic eval
 boundary (``src/core.rs:119-132``).  Pinned here with the separable
 family (``models/separable``):
 
-- kernel-vs-oracle equality for every generated kernel (interpret mode),
-  including tail-masked grids and the extra operand streams;
-- solver engagement: the one-kernel epilogue and combine+probe protocols
-  actually fire for a factory objective;
+- the plain-jnp trial/probe protocol against direct jnp expressions,
+  including the OWL-QN projected trial and its L1 term;
+- the fused epilogue (interpret mode) streaming bound extras, and the
+  solver engaging it for a factory objective;
 - OWL-QN on the diagonal quadratic against its ANALYTIC soft-threshold
   solution;
-- extras and global-index bodies under an 8-device kernels_on_mesh
-  (shard-local extras slices + shard-offset gidx).
-
-Rosenbrock itself is re-expressed through the factory since round 5; its
-bitwise trajectory parity is pinned by the existing suite
-(tests/test_native_parity.py and the golden asserts).
+- extras and global-index bodies on an 8-device mesh (GSPMD partitions
+  the jnp protocol; results equal the single-device ones).
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.models import separable
-from lbfgs_tpu.ops import factory, fused
-from lbfgs_tpu.params import LbfgsParams
-from lbfgs_tpu.parallel import kernels_on_mesh, make_mesh
-
-pytestmark = pytest.mark.skipif(not fused.HAVE_PALLAS,
-                                reason="pallas unavailable")
+from lbfgs_jax.models import separable
+from lbfgs_jax.ops import epilogue, factory, fused
+from lbfgs_jax.params import LbfgsParams
+from lbfgs_jax.parallel import make_mesh, shard_vector
 
 M = 6
-
-
-@pytest.fixture(autouse=True)
-def _interpret_kernels():
-    os.environ["LBFGS_TPU_KERNELS_INTERPRET"] = "1"
-    yield
-    del os.environ["LBFGS_TPU_KERNELS_INTERPRET"]
 
 
 def _rand(shape, seed, scale=1.0):
@@ -75,161 +58,103 @@ def test_sphere_synthesized_vag():
         np.testing.assert_allclose(np.asarray(g), np.asarray(x), rtol=1e-6)
 
 
-@pytest.mark.parametrize("n", [4096, 128 * 9])  # aligned + partial tail
+def test_protocol_attached():
+    obj, _, _ = _quad(256)
+    for name in ("value_and_grad", "trial", "trial_probe", "owlqn_trial",
+                 "owlqn_probe", "trial_pair_gram", "trial_pair_gram_ok"):
+        assert getattr(obj, f"__lbfgs_{name}__", None) is not None, name
+    plain = factory.without_epilogue(obj)
+    assert getattr(plain, "__lbfgs_trial__") is obj.__lbfgs_trial__
+    assert getattr(plain, "__lbfgs_trial_pair_gram__", None) is None
+
+
+@pytest.mark.parametrize("n", [4096, 128 * 9 + 2])  # aligned + tail
 def test_quadratic_trial_probe_kernels(n):
-    obj, w, t = _quad(n)
+    obj, w, t = _quad(n, seed=10)
     k = obj.kernels
-    xp, d = _rand(n, 10), _rand(n, 11)
-    ref = k.trial_ref(xp, d, 0.37)
-    out = k.trial_pallas(xp, d, 0.37, interpret=True)
-    for r, o in zip(ref, out):
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r),
-                                   rtol=2e-5, atol=2e-5)
-    ft, dg = k.probe_pallas(xp, d, 0.37, interpret=True)
-    # probe scalars bitwise-match the materializing trial's (remat
-    # contract: same block shapes + accumulation order)
-    assert float(ft) == float(out[1])
-    assert float(dg) == float(out[3])
+    xp, d = _rand(n, 11), _rand(n, 12)
+    xt, fx, g, dg, gg, xx, changed = k.trial(xp, d, 0.37)
+    x = xp + 0.37 * d
+    r = x - t
+    np.testing.assert_allclose(np.asarray(xt), np.asarray(x), rtol=1e-7)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(w * r), rtol=1e-6)
+    assert float(fx) == pytest.approx(float(0.5 * jnp.sum(w * r * r)), rel=1e-5)
+    assert float(dg) == pytest.approx(float(jnp.dot(w * r, d)), rel=1e-4)
+    assert float(gg) == pytest.approx(float(jnp.dot(w * r, w * r)), rel=1e-5)
+    assert float(xx) == pytest.approx(float(jnp.dot(x, x)), rel=1e-5)
+    assert bool(changed)
+    ft, dgp = k.probe(xp, d, 0.37)
+    assert float(ft) == float(fx) and float(dgp) == float(dg)  # remat
 
 
 def test_quadratic_owlqn_trial_probe_kernels():
     n = 4096
     obj, w, t = _quad(n, seed=20)
     k = obj.kernels
-    xp, d, pg = _rand(n, 21), _rand(n, 22), _rand(n, 23)
-    ms = lambda v: jnp.where(jnp.isnan(v), 0.0, jnp.sign(v))
-    wp = jnp.where(xp == 0.0, ms(-pg), ms(xp))
-    c, lo, hi = 0.25, 130, n - 7
-    ref = k.owlqn_trial_ref(xp, d, wp, 0.5, c, lo, hi)
-    out = k.owlqn_trial_pallas(xp, d, wp, 0.5, c, lo, hi, interpret=True)
-    for r, o in zip(ref, out):
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r),
-                                   rtol=2e-5, atol=2e-5)
-    ftp, dgp = k.owlqn_probe_pallas(xp, d, wp, 0.5, c, lo, hi,
-                                    interpret=True)
-    assert float(ftp) == float(out[1])
-    # pg-probe recomputes the same orthant in-register
-    ftg, dgg = k.owlqn_probe_pg_pallas(xp, d, pg, 0.5, c, lo, hi,
-                                       interpret=True)
-    assert float(ftg) == float(ftp)
-    assert float(dgg) == float(dgp)
+    xp, d = _rand(n, 21), _rand(n, 22)
+    wp = jnp.sign(_rand(n, 23))
+    c, lo, hi = 0.5, 100, 3000
+    xt, ft, g, dg, xx, changed = k.owlqn_trial(xp, d, wp, 0.2, c, lo, hi)
+    x = xp + 0.2 * d
+    idx = np.arange(n)
+    win = (idx >= lo) & (idx < hi)
+    x = jnp.where(win & (jnp.sign(x) != wp), 0.0, x)
+    np.testing.assert_allclose(np.asarray(xt), np.asarray(x), rtol=1e-7)
+    r = x - t
+    l1 = float(jnp.sum(jnp.where(win, jnp.abs(x), 0.0)))
+    assert float(ft) == pytest.approx(
+        float(0.5 * jnp.sum(w * r * r)) + c * l1, rel=1e-5)
+    assert float(dg) == pytest.approx(float(jnp.dot(w * r, d)), rel=1e-4)
+    ftp, dgp = k.owlqn_probe(xp, d, wp, 0.2, c, lo, hi)
+    assert float(ftp) == float(ft) and float(dgp) == float(dg)
 
 
-def test_quadratic_epilogue_kernels():
-    n = 4096
+def test_quadratic_epilogue_kernels(epilogue_interpret):
+    """The factory's epilogue entry streams the bound extras (w, t)."""
+    n = 128 * 21
     obj, w, t = _quad(n, seed=30)
-    k = obj.kernels
-    xp, d, gp, pg = (_rand(n, 31), _rand(n, 32), _rand(n, 33),
-                     _rand(n, 34))
-    S, Y = _rand((M, n), 35, 0.1), _rand((M, n), 36, 0.1)
-    end = 2
-    # plain epilogue vs composed oracle
-    out = k.trial_pair_gram_pallas(xp, d, gp, 0.37, _ring(S), _ring(Y),
-                                   end, interpret=True, with_gp=True)
-    xt, fx, g, dg, gg, xx, changed, S_new, Y_new, SP, YP = out
-    xt_r, fx_r, g_r, dg_r, gg_r, xx_r, _ = k.trial_ref(xp, d, 0.37)
-    np.testing.assert_allclose(np.asarray(xt), np.asarray(xt_r),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(g), np.asarray(g_r), rtol=1e-5,
-                               atol=1e-5)
-    assert float(fx) == pytest.approx(float(fx_r), rel=1e-5)
-    s_ref = 0.37 * d
-    y_ref = g_r - gp
-    np.testing.assert_allclose(
-        np.asarray(S_new.reshape(M, n)[end]), np.asarray(s_ref),
-        rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(Y_new.reshape(M, n)[end]), np.asarray(y_ref),
-        rtol=1e-5, atol=1e-5)
-    S_full = S.at[end].set(s_ref)
-    SP_ref = jnp.stack([S_full @ y_ref, S_full @ s_ref, S_full @ (-g_r),
-                        S_full @ gp], axis=1)
-    np.testing.assert_allclose(np.asarray(SP), np.asarray(SP_ref),
-                               rtol=2e-4, atol=2e-3)
-    # OWL-QN epilogue vs composed oracle
-    c, lo, hi = 0.25, 0, n
-    out_ow = k.owlqn_trial_pair_gram_pallas(
-        xp, d, gp, pg, 0.5, c, lo, hi, _ring(S), _ring(Y), end,
-        interpret=True, with_gp=True,
-    )
-    ref_ow = k.owlqn_trial_pair_gram_ref(
-        xp, d, gp, pg, 0.5, c, lo, hi, S, Y, end, with_gp=True,
-    )
-    labels = ("x", "g", "pg", "S", "Y", "SP", "YP", "xx", "pgpg",
-              "changed", "gpgp", "gppg")
-    for name, o, r in zip(labels, out_ow, ref_ow):
-        if name in ("S", "Y"):
-            o = o.reshape(M, n)
-        np.testing.assert_allclose(
-            np.asarray(o, dtype=np.float64), np.asarray(r, dtype=np.float64),
-            rtol=2e-4, atol=2e-3, err_msg=name)
+    xp, d, gp = _rand(n, 31), _rand(n, 32, 0.1), _rand(n, 33)
+    S, Y = _ring(_rand((M, n), 34, 0.1)), _ring(_rand((M, n), 35, 0.1))
+    assert obj.kernels.trial_pair_gram_ok(xp, S)
+    out = obj.kernels.trial_pair_gram(xp, d, gp, 0.3, S, Y, 4, with_gp=True)
+    ref = epilogue.trial_pair_gram_ref(obj, xp, d, gp, 0.3, S, Y, 4,
+                                       with_gp=True)
+    assert epilogue_interpret
+    np.testing.assert_allclose(np.asarray(out[2]), np.asarray(ref[2]),
+                               rtol=1e-6, atol=1e-6)
+    assert float(out[1]) == pytest.approx(float(ref[1]), rel=1e-5)
+    np.testing.assert_allclose(np.asarray(out[9]), np.asarray(ref[9]),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(out[10]), np.asarray(ref[10]),
+                               rtol=1e-4, atol=1e-4)
 
 
-def test_quadratic_combine_probe_kernels():
-    n = 4096
-    obj, w, t = _quad(n, seed=40)
-    k = obj.kernels
-    g, x, pg = _rand(n, 41), _rand(n, 42), _rand(n, 43)
-    S, Y = _rand((M, n), 44, 0.1), _rand((M, n), 45, 0.1)
-    cs, cy = _rand(M, 46, 0.1), _rand(M, 47, 0.1)
-    ref = k.combine_probe_ref(g, x, S, Y, -0.4, cs, cy)
-    out = k.combine_probe_pallas(g, x, _ring(S), _ring(Y), -0.4, cs, cy,
-                                 interpret=True)
-    for r, o in zip(ref, out):
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r),
-                                   rtol=2e-4, atol=1e-2)
-    ref_ow = k.combine_ow_probe_ref(pg, x, S, Y, -0.4, cs, cy, 0.25,
-                                    130, n - 7)
-    out_ow = k.combine_ow_probe_pallas(pg, x, _ring(S), _ring(Y), -0.4,
-                                       cs, cy, 0.25, 130, n - 7,
-                                       interpret=True)
-    for r, o in zip(ref_ow, out_ow):
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r),
-                                   rtol=2e-4, atol=1e-2)
-
-
-def test_quadratic_solver_engages_epilogue(monkeypatch):
+def test_quadratic_solver_engages_epilogue(epilogue_interpret):
     """End-to-end: a factory objective (with extras!) drives the fused
-    epilogue + combine+probe hot path, and the kernel trajectory matches
-    the jnp path at f32-reassociation tolerance."""
-    from lbfgs_tpu.minimize import minimize_jit
+    epilogue hot path to the exact minimizer t, in step with the plain
+    path."""
+    from lbfgs_jax.minimize import minimize_jit
 
-    n = fused.MIN_FUSED_N
+    n = 1 << 14
     obj, w, t = _quad(n, seed=50)
     params = LbfgsParams(epsilon=1e-5, max_iterations=60,
                          constrain_step_size=False)
-
-    engaged = []
-    orig = obj.kernels.trial_pair_gram_pallas
-
-    def spy(*a, **kw):
-        engaged.append(True)
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(obj.kernels, "trial_pair_gram_pallas", spy)
     x0 = jnp.zeros((n,), jnp.float32)
     rep_k = minimize_jit(params, x0, obj)
-    assert engaged, "factory epilogue did not engage"
-    # quadratic: exact solution is t
+    assert epilogue_interpret, "factory epilogue did not engage"
     np.testing.assert_allclose(np.asarray(rep_k.x), np.asarray(t),
                                rtol=1e-3, atol=1e-3)
-
-    # fresh (identical-math) objective: minimize_jit caches the compiled
-    # run per (objective, params), so re-using `obj` would replay the
-    # kernel trace and ignore the env switch
-    obj2, _, _ = _quad(n, seed=50)
-    monkeypatch.setenv("LBFGS_TPU_NO_PALLAS", "1")
-    rep_j = minimize_jit(params, x0, obj2)
+    rep_j = minimize_jit(params, x0, factory.without_epilogue(obj))
     assert rep_k.niter == pytest.approx(rep_j.niter, abs=2)
     assert rep_k.fx == pytest.approx(rep_j.fx, rel=1e-2, abs=1e-4)
 
 
 def test_quartic_nontrivial_convergence():
     """A non-quadratic separable family member: the history must learn
-    real curvature; kernel and jnp paths agree on the minimizer (0)."""
-    from lbfgs_tpu.minimize import minimize_jit
+    real curvature; the solver lands on the minimizer (0)."""
+    from lbfgs_jax.minimize import minimize_jit
 
-    n = fused.MIN_FUSED_N
+    n = 1 << 14
     w = 0.5 + jnp.abs(_rand(n, 60))
     obj = separable.scaled_quartic(w)
     params = LbfgsParams(epsilon=1e-5, max_iterations=80,
@@ -240,36 +165,24 @@ def test_quartic_nontrivial_convergence():
     assert float(jnp.max(jnp.abs(rep.x))) < 1e-3
 
 
-def test_owlqn_quadratic_soft_threshold(monkeypatch):
+def test_owlqn_quadratic_soft_threshold():
     """OWL-QN on the diagonal quadratic has the ANALYTIC solution
-    x* = sign(t) * max(|t| - c/w, 0): the factory's OWL-QN kernel path
-    must land on it (and engage the OW one-kernel epilogue)."""
-    from lbfgs_tpu.minimize import minimize_jit
-    from lbfgs_tpu.orthantwise import Orthantwise
+    x* = sign(t) * max(|t| - c/w, 0)."""
+    from lbfgs_jax.minimize import minimize_jit
+    from lbfgs_jax.orthantwise import Orthantwise
 
-    n = fused.MIN_FUSED_N
+    n = 1 << 14
     obj, w, t = _quad(n, seed=70)
     c = 0.3
     # epsilon sized to the f32 objective-resolution floor: at this n the
     # fx magnitude is ~3e3 (ULP ~2.4e-4) and the Armijo ladder stalls
-    # below gnorm ~4e-3 (the same wall params.fx_wide exists for —
-    # PERF.md round 4); 1e-4 scaled converges well above it
+    # below gnorm ~4e-3 (the wall params.fx_wide exists for)
     params = LbfgsParams(
         epsilon=1e-4, max_iterations=200, constrain_step_size=False,
         orthantwise=Orthantwise(c=c, start=0, end=None),
     )
-
-    engaged = []
-    orig = obj.kernels.owlqn_trial_pair_gram_pallas
-
-    def spy(*a, **kw):
-        engaged.append(True)
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(obj.kernels, "owlqn_trial_pair_gram_pallas", spy)
     x0 = jnp.zeros((n,), jnp.float32)
     rep = minimize_jit(params, x0, obj)
-    assert engaged, "factory OWL-QN epilogue did not engage"
     x_star = jnp.sign(t) * jnp.maximum(jnp.abs(t) - c / w, 0.0)
     np.testing.assert_allclose(np.asarray(rep.x), np.asarray(x_star),
                                rtol=1e-2, atol=2e-3)
@@ -282,31 +195,30 @@ def mesh():
 
 
 def test_quadratic_extras_on_mesh(mesh):
-    """Extras must shard WITH the vector (a closure capture inside
-    shard_map would be replicated): sharded kernel == single-device."""
+    """Extras sharded WITH the vector: the partitioned trial equals the
+    single-device one."""
     n = 8 * 128 * 4
-    obj, w, t = _quad(n, seed=80)
-    k = obj.kernels
-    xp, d = _rand(n, 81), _rand(n, 82)
-    xt0, fx0, g0, dg0, gg0, xx0, ch0 = k.trial_pallas(xp, d, 0.37,
-                                                      interpret=True)
-    with kernels_on_mesh(mesh):
-        out = k.trial(xp, d, 0.37)
-    xt1, fx1, g1, dg1, gg1, xx1, ch1 = out
-    # pointwise math, but different jit programs may fuse FMAs
-    # differently on CPU: tight tolerance instead of bitwise
-    np.testing.assert_allclose(np.asarray(xt1), np.asarray(xt0),
+    w = 0.5 + jnp.abs(_rand(n, 80))
+    t = _rand(n, 81)
+    xp, d = _rand(n, 82), _rand(n, 83)
+
+    def trial(w_, t_, xp_, d_):
+        return separable.quadratic(w_, t_).kernels.trial(xp_, d_, 0.37)
+
+    out0 = jax.jit(trial)(w, t, xp, d)
+    sh = [shard_vector(a, mesh) for a in (w, t, xp, d)]
+    out1 = jax.jit(trial)(*sh)
+    np.testing.assert_allclose(np.asarray(out1[0]), np.asarray(out0[0]),
                                rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g0),
+    np.testing.assert_allclose(np.asarray(out1[2]), np.asarray(out0[2]),
                                rtol=1e-6, atol=1e-6)
-    assert float(fx1) == pytest.approx(float(fx0), rel=1e-5)
-    assert float(dg1) == pytest.approx(float(dg0), rel=1e-5, abs=1e-3)
+    assert float(out1[1]) == pytest.approx(float(out0[1]), rel=1e-5)
+    assert float(out1[3]) == pytest.approx(float(out0[3]), rel=1e-5, abs=1e-3)
 
 
 def test_gidx_dependent_body_on_mesh(mesh):
-    """A block body that reads the GLOBAL element index: each shard's
-    kernel must see offset indices (an unshifted gidx would weight shard
-    k like shard 0 — visibly wrong)."""
+    """A block body that reads the GLOBAL element index sees the same
+    indices on a sharded vector as on one device."""
     n = 8 * 128 * 2
 
     def block(x, gidx):
@@ -314,34 +226,33 @@ def test_gidx_dependent_body_on_mesh(mesh):
         return 0.5 * (w * (x * x)), w * x
 
     obj = factory.make_fused_objective(block)
-    k = obj.kernels
     xp, d = _rand(n, 90), _rand(n, 91)
-    ref = k.trial_ref(xp, d, 0.4)  # synthesized vag: global arange
-    with kernels_on_mesh(mesh):
-        out = k.trial(xp, d, 0.4)
-    np.testing.assert_allclose(np.asarray(out[0]), np.asarray(ref[0]),
-                               rtol=1e-6)
+    trial = jax.jit(lambda a, b: obj.kernels.trial(a, b, 0.4))
+    ref = trial(xp, d)
+    out = trial(shard_vector(xp, mesh), shard_vector(d, mesh))
+    w = 1.0 + 0.1 * (jnp.arange(n) % 7)
+    # pointwise math, but separate programs may contract a*b+c into FMAs
+    # differently: tight tolerance instead of bitwise
+    np.testing.assert_allclose(np.asarray(ref[2]),
+                               np.asarray(w * (xp + 0.4 * d)),
+                               rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(np.asarray(out[2]), np.asarray(ref[2]),
-                               rtol=1e-6)
+                               rtol=1e-6, atol=1e-6)
     assert float(out[1]) == pytest.approx(float(ref[1]), rel=1e-5)
 
 
 def test_quadratic_epilogue_on_mesh(mesh):
-    """The full epilogue (extras + ring write + Gram psum) on the mesh."""
+    """On a mesh the epilogue's gate keeps the partitioned jnp path: a
+    sharded factory-objective solve matches the single-device one."""
+    from lbfgs_jax.minimize import minimize_jit
+
     n = 8 * 128 * 2
     obj, w, t = _quad(n, seed=95)
-    k = obj.kernels
-    xp, d, gp = _rand(n, 96), _rand(n, 97), _rand(n, 98)
-    S, Y = _rand((M, n), 99, 0.1), _rand((M, n), 100, 0.1)
-    out0 = k.trial_pair_gram_pallas(xp, d, gp, 0.3, _ring(S), _ring(Y), 1,
-                                    interpret=True)
-    with kernels_on_mesh(mesh):
-        out1 = k.trial_pair_gram(xp, d, gp, 0.3, _ring(S), _ring(Y), 1)
-    np.testing.assert_allclose(np.asarray(out1[0]), np.asarray(out0[0]),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(out1[2]), np.asarray(out0[2]),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(out1[9]), np.asarray(out0[9]),
-                               rtol=1e-4, atol=1e-3)  # SP
-    np.testing.assert_allclose(np.asarray(out1[10]), np.asarray(out0[10]),
-                               rtol=1e-4, atol=1e-3)  # YP
+    params = LbfgsParams(epsilon=1e-5, max_iterations=40,
+                         constrain_step_size=False)
+    x0 = jnp.zeros((n,), jnp.float32)
+    rep0 = minimize_jit(params, x0, obj)
+    rep1 = minimize_jit(params, shard_vector(x0, mesh), obj)
+    assert int(rep1.niter) == int(rep0.niter)
+    np.testing.assert_allclose(np.asarray(rep1.x), np.asarray(rep0.x),
+                               rtol=1e-4, atol=1e-5)

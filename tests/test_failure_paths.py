@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import LbfgsError, lbfgs
-from lbfgs_tpu.native import minimize_native
-from lbfgs_tpu.params import LbfgsParams
+from lbfgs_jax import LbfgsError, lbfgs
+from lbfgs_jax.native import minimize_native
+from lbfgs_jax.params import LbfgsParams
 
 
 def linear_vag(x):
@@ -68,14 +68,14 @@ def test_objective_with_optional_kwarg_not_misrouted():
 
 
 def test_odd_n_rosenbrock_rejected():
-    from lbfgs_tpu.models import rosenbrock
+    from lbfgs_jax.models import rosenbrock
 
     with pytest.raises(ValueError, match="even n"):
         rosenbrock.value_and_grad(jnp.zeros(5))
 
 
 def test_native_cancel_status_matches_jax():
-    from lbfgs_tpu import Status
+    from lbfgs_jax import Status
 
     def rosen(x, g):
         n = len(x)

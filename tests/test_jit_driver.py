@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import Status, lbfgs
-from lbfgs_tpu.models import booth, rosenbrock
+from lbfgs_jax import Status, lbfgs
+from lbfgs_jax.models import booth, rosenbrock
 
 
 def test_jit_matches_host_loop():
@@ -46,11 +46,11 @@ def test_jit_booth():
 
 
 def test_jit_return_state_no_sync():
-    from lbfgs_tpu.core import SolverState
-    from lbfgs_tpu.params import LbfgsParams
+    from lbfgs_jax.core import SolverState
+    from lbfgs_jax.params import LbfgsParams
 
     x0 = rosenbrock.initial_point(10)
-    from lbfgs_tpu.minimize import minimize_jit
+    from lbfgs_jax.minimize import minimize_jit
 
     st = minimize_jit(LbfgsParams(), x0, rosenbrock.value_and_grad, return_state=True)
     assert isinstance(st, SolverState)

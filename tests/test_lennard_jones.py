@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import lbfgs
-from lbfgs_tpu.models import lennard_jones
+from lbfgs_jax import lbfgs
+from lbfgs_jax.models import lennard_jones
 
 
 def test_lj_gradient_matches_autodiff():

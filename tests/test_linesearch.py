@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.core import ProblemDef
-from lbfgs_tpu.linesearch import backtracking, find, morethuente, update_trial_interval
-from lbfgs_tpu.params import LineSearchAlgorithm, LineSearchParams
-from lbfgs_tpu.status import Status
+from lbfgs_jax.core import ProblemDef
+from lbfgs_jax.linesearch import backtracking, find, morethuente, update_trial_interval
+from lbfgs_jax.params import LineSearchAlgorithm, LineSearchParams
+from lbfgs_jax.status import Status
 
 
 def f64(v):
@@ -180,7 +180,7 @@ def test_exhaustion_returns_max_linesearch():
 
 
 def test_find_routes_owlqn_to_backtracking():
-    from lbfgs_tpu.orthantwise import Orthantwise
+    from lbfgs_jax.orthantwise import Orthantwise
 
     def vag(x):
         return jnp.sum((x - 1.0) ** 2), 2.0 * (x - 1.0)
@@ -189,7 +189,7 @@ def test_find_routes_owlqn_to_backtracking():
     pdef = ProblemDef(value_and_grad=vag, owlqn=Orthantwise(c=0.1, start=0, end=None))
     xp = jnp.array([0.5, -0.5])
     fx0, g = vag(xp)
-    from lbfgs_tpu.orthantwise import pseudo_gradient, x1norm
+    from lbfgs_jax.orthantwise import pseudo_gradient, x1norm
 
     fx = fx0 + x1norm(pdef.owlqn, xp)
     pg = pseudo_gradient(pdef.owlqn, xp, g)

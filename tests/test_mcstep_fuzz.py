@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.linesearch import update_trial_interval
-from lbfgs_tpu.native import load
+from lbfgs_jax.linesearch import update_trial_interval
+from lbfgs_jax.native import load
 
 
 def native_mcstep(x, fx, dx, y, fy, dy, t, ft, dt, tmin, tmax, brackt):

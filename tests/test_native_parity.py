@@ -15,11 +15,11 @@ point as iteration 1, shifting counts by exactly +1.
 import numpy as np
 import pytest
 
-from lbfgs_tpu import lbfgs
-from lbfgs_tpu.models import rosenbrock
-from lbfgs_tpu.native import minimize_native
-from lbfgs_tpu.orthantwise import Orthantwise
-from lbfgs_tpu.params import LbfgsParams
+from lbfgs_jax import lbfgs
+from lbfgs_jax.models import rosenbrock
+from lbfgs_jax.native import minimize_native
+from lbfgs_jax.orthantwise import Orthantwise
+from lbfgs_jax.params import LbfgsParams
 
 OLD = dict(constrain_step_size=False)  # pre-2019 reference behavior
 
@@ -72,7 +72,7 @@ def test_jax_scan_reproduces_recorded_trajectory():
     reductions happen to agree here."""
     x0 = rosenbrock.initial_point(100)
     params = LbfgsParams(compact_two_loop=False, **OLD)
-    from lbfgs_tpu.minimize import minimize as _min
+    from lbfgs_jax.minimize import minimize as _min
 
     rep = _min(params, x0, rosenbrock.value_and_grad)
     assert rep.fx == pytest.approx(1.2832127771605377e-15, rel=1e-3)
@@ -84,7 +84,7 @@ def test_jax_matches_native_current_defaults():
     """With today's defaults both stacks follow the same trajectory."""
     rep_n = minimize_native(LbfgsParams(), x0_np(), rosen_seq)
     x0 = rosenbrock.initial_point(100)
-    from lbfgs_tpu.minimize import minimize as _min
+    from lbfgs_jax.minimize import minimize as _min
 
     rep_j = _min(LbfgsParams(compact_two_loop=False), x0, rosenbrock.value_and_grad)
     assert rep_j.niter == rep_n.niter == 35
@@ -133,10 +133,10 @@ def test_builder_native_backend_routing():
 
 
 # ---------------------------------------------------------------------------
-# Default-path pinning (round 2): the SHIPPING config — compact two-loop,
-# and the Pallas kernels via interpret mode — is held to the same
-# trajectories as the oracle / jnp path, so a regression in the compact or
-# fused path fails CI (not just the loose golden bands).
+# Default-path pinning: the SHIPPING config — compact two-loop, and the
+# fused epilogue via interpret mode — is held to the same trajectories as
+# the oracle / jnp path, so a regression in the compact or fused path
+# fails CI (not just the loose golden bands).
 # ---------------------------------------------------------------------------
 
 
@@ -145,7 +145,7 @@ def test_jax_compact_reproduces_recorded_trajectory():
     recorded 2018 trajectory digit-for-digit, like the scan path."""
     x0 = rosenbrock.initial_point(100)
     params = LbfgsParams(compact_two_loop=True, **OLD)
-    from lbfgs_tpu.minimize import minimize as _min
+    from lbfgs_jax.minimize import minimize as _min
 
     rep = _min(params, x0, rosenbrock.value_and_grad)
     assert rep.fx == pytest.approx(1.2832127771605377e-15, rel=1e-3)
@@ -156,7 +156,7 @@ def test_jax_compact_reproduces_recorded_trajectory():
 def test_jax_compact_matches_native_current_defaults():
     rep_n = minimize_native(LbfgsParams(), x0_np(), rosen_seq)
     x0 = rosenbrock.initial_point(100)
-    from lbfgs_tpu.minimize import minimize as _min
+    from lbfgs_jax.minimize import minimize as _min
 
     rep_j = _min(LbfgsParams(compact_two_loop=True), x0, rosenbrock.value_and_grad)
     assert rep_j.niter == rep_n.niter == 35
@@ -168,7 +168,7 @@ def test_jax_compact_owlqn_matches_native():
     """OWL-QN through the compact path lands on the native trajectory."""
     r1 = minimize_native(LbfgsParams(**OLD), x0_np(), rosen_seq)
     p2 = LbfgsParams(orthantwise=Orthantwise(1.0, 0, 99), **OLD)
-    from lbfgs_tpu.minimize import minimize as _min
+    from lbfgs_jax.minimize import minimize as _min
     import jax.numpy as jnp
 
     rep_j = _min(p2, jnp.asarray(r1.x.copy()), rosenbrock.value_and_grad)
@@ -176,54 +176,40 @@ def test_jax_compact_owlqn_matches_native():
     assert rep_j.niter == 172
 
 
-@pytest.fixture
-def interpret_kernels(monkeypatch):
-    monkeypatch.setenv("LBFGS_TPU_KERNELS_INTERPRET", "1")
-    yield
-    # jit caches are keyed on fresh LbfgsState lambdas; nothing to clear
-
-
-def _run_f32(n, owlqn=False, max_iter=25):
+def _run_f32(n, obj, damping=False, max_iter=25):
     """Fixed-prefix f32 trajectory through the host driver (fresh jits)."""
     import jax.numpy as jnp
 
-    from lbfgs_tpu.minimize import LbfgsState
+    from lbfgs_jax.minimize import LbfgsState
 
-    params = LbfgsParams(max_iterations=max_iter, epsilon=0.0)
-    if owlqn:
-        params = LbfgsParams(
-            max_iterations=max_iter,
-            epsilon=0.0,
-            orthantwise=Orthantwise(1.0, 0, n - 1),
-        )
+    params = LbfgsParams(max_iterations=max_iter, epsilon=0.0,
+                         damping=damping)
     x0 = rosenbrock.initial_point(n, dtype=jnp.float32)
-    st = LbfgsState.build(params, x0, rosenbrock.value_and_grad)
+    st = LbfgsState.build(params, x0, obj)
     while not st.is_converged():
         st.propagate()
     rep = st.report()
     return rep
 
 
-@pytest.mark.parametrize("owlqn", [False, True], ids=["lbfgs", "owlqn"])
-def test_kernel_path_pinned_to_jnp_path(interpret_kernels, monkeypatch, owlqn):
-    """The f32 Pallas-kernel path (interpret mode on CPU: same kernel math,
-    no Mosaic) follows the jnp path's trajectory: identical iteration
-    count over a fixed prefix and matching fx.  n >= MIN_FUSED_N so the
-    kernels actually engage (guarded below)."""
-    from lbfgs_tpu.ops import fused
+@pytest.mark.parametrize("damping", [False, True], ids=["lbfgs", "damped"])
+def test_kernel_path_pinned_to_jnp_path(epilogue_interpret, damping):
+    """The f32 fused-epilogue path (interpret mode on CPU: the same kernel
+    math, no Triton compile) follows the jnp path's trajectory: identical
+    iteration count over a fixed prefix and matching fx."""
+    from lbfgs_jax.ops.factory import without_epilogue
 
-    n = fused.MIN_FUSED_N
-    assert fused._use_pallas(np.zeros(4, np.float32))  # kernels engaged
-
+    n = 1 << 14
+    vag = rosenbrock.value_and_grad
     # short prefix: tight agreement (f32 reassociation has not amplified
     # through the chaotic Rosenbrock valley yet) — a ring-slot or Gram
     # wiring regression diverges by orders of magnitude immediately
-    rep_k8 = _run_f32(n, owlqn=owlqn, max_iter=8)
-    rep_k = _run_f32(n, owlqn=owlqn)
-    monkeypatch.setenv("LBFGS_TPU_NO_PALLAS", "1")
-    assert not fused._use_pallas(np.zeros(4, np.float32))
-    rep_j8 = _run_f32(n, owlqn=owlqn, max_iter=8)
-    rep_j = _run_f32(n, owlqn=owlqn)
+    rep_k8 = _run_f32(n, vag, damping, max_iter=8)
+    rep_k = _run_f32(n, vag, damping)
+    assert epilogue_interpret, "the epilogue did not engage"
+    plain = without_epilogue(vag)
+    rep_j8 = _run_f32(n, plain, damping, max_iter=8)
+    rep_j = _run_f32(n, plain, damping)
 
     assert rep_k8.niter == rep_j8.niter
     assert rep_k8.fx == pytest.approx(rep_j8.fx, rel=1e-4)
@@ -242,7 +228,7 @@ def test_native_backend_does_not_mutate_caller_x0():
     already-minimized point and reported niter=0)."""
     import jax.numpy as jnp
 
-    from lbfgs_tpu.minimize import minimize
+    from lbfgs_jax.minimize import minimize
 
     x0 = rosenbrock.initial_point(100)
     before = np.array(x0)
@@ -250,7 +236,7 @@ def test_native_backend_does_not_mutate_caller_x0():
     np.testing.assert_array_equal(np.array(x0), before)
 
     # and the raw wrapper path too
-    from lbfgs_tpu.native import minimize_native
+    from lbfgs_jax.native import minimize_native
 
     x1 = jnp.asarray(x0_np())
     before1 = np.array(x1)

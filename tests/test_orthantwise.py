@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.orthantwise import (
+from lbfgs_jax.orthantwise import (
     Orthantwise,
     choose_orthant,
     constrain_direction,

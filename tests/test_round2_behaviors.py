@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import LbfgsError, Status, lbfgs
-from lbfgs_tpu.core import ProblemDef
-from lbfgs_tpu.models import rosenbrock
-from lbfgs_tpu.params import LbfgsParams, LineSearchParams
+from lbfgs_jax import LbfgsError, Status, lbfgs
+from lbfgs_jax.core import ProblemDef
+from lbfgs_jax.models import rosenbrock
+from lbfgs_jax.params import LbfgsParams, LineSearchParams
 
 
 # ---------------------------------------------------------------------------
@@ -49,8 +49,8 @@ def test_negative_step_jit_driver():
     """The whole-run driver surfaces the same status via _run_while."""
     import jax
 
-    from lbfgs_tpu.minimize import _run_while
-    from lbfgs_tpu.solver import init_state, start_state
+    from lbfgs_jax.minimize import _run_while
+    from lbfgs_jax.solver import init_state, start_state
 
     params = LbfgsParams()
     pdef = ProblemDef(value_and_grad=rosenbrock.value_and_grad)
@@ -67,13 +67,13 @@ def test_negative_step_jit_driver():
 
 
 def test_ascent_direction_warning(caplog):
-    from lbfgs_tpu import linesearch
+    from lbfgs_jax import linesearch
 
     x0 = rosenbrock.initial_point(10)
     pdef = ProblemDef(value_and_grad=rosenbrock.value_and_grad)
     fx, gx = rosenbrock.value_and_grad(x0)
     d = gx  # ascent: g . d = ||g||^2 > 0
-    with caplog.at_level(logging.WARNING, logger="lbfgs_tpu"):
+    with caplog.at_level(logging.WARNING, logger="lbfgs_jax"):
         linesearch.find(
             pdef,
             LineSearchParams(),
@@ -91,12 +91,12 @@ def test_ascent_direction_warning(caplog):
 
 
 def test_no_ascent_warning_on_descent(caplog):
-    from lbfgs_tpu import linesearch
+    from lbfgs_jax import linesearch
 
     x0 = rosenbrock.initial_point(10)
     pdef = ProblemDef(value_and_grad=rosenbrock.value_and_grad)
     fx, gx = rosenbrock.value_and_grad(x0)
-    with caplog.at_level(logging.WARNING, logger="lbfgs_tpu"):
+    with caplog.at_level(logging.WARNING, logger="lbfgs_jax"):
         linesearch.find(
             pdef,
             LineSearchParams(),
@@ -119,7 +119,7 @@ def test_no_ascent_warning_on_descent(caplog):
 
 
 def test_log_max_iterations(caplog):
-    with caplog.at_level(logging.WARNING, logger="lbfgs_tpu"):
+    with caplog.at_level(logging.WARNING, logger="lbfgs_jax"):
         lbfgs().with_max_iterations(3).minimize(
             rosenbrock.initial_point(10), rosenbrock.value_and_grad
         )
@@ -127,7 +127,7 @@ def test_log_max_iterations(caplog):
 
 
 def test_log_convergence_info(caplog):
-    with caplog.at_level(logging.INFO, logger="lbfgs_tpu"):
+    with caplog.at_level(logging.INFO, logger="lbfgs_jax"):
         lbfgs().minimize(rosenbrock.initial_point(10), rosenbrock.value_and_grad)
     assert any("reaches convergence" in r.message for r in caplog.records)
 
@@ -140,7 +140,7 @@ def test_log_linesearch_failure(caplog):
     # max_linesearch high enough for More-Thuente's extrapolation to
     # actually reach max_step (0.35 * 5^26 > 1e20) and error out, instead
     # of exhausting the trial budget (which counts as success)
-    with caplog.at_level(logging.ERROR, logger="lbfgs_tpu"):
+    with caplog.at_level(logging.ERROR, logger="lbfgs_jax"):
         with pytest.raises(LbfgsError):
             lbfgs().with_max_linesearch(60).minimize(jnp.zeros(8), linear_vag)
     assert any(
@@ -151,7 +151,7 @@ def test_log_linesearch_failure(caplog):
 
 
 def test_log_owlqn_restriction(caplog):
-    with caplog.at_level(logging.WARNING, logger="lbfgs_tpu"):
+    with caplog.at_level(logging.WARNING, logger="lbfgs_jax"):
         lbfgs().with_orthantwise(1.0, 0, 99)
     assert any("Only the backtracking" in r.message for r in caplog.records)
 

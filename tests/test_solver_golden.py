@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import lbfgs
-from lbfgs_tpu.models import booth, rosenbrock
+from lbfgs_jax import lbfgs
+from lbfgs_jax.models import booth, rosenbrock
 
 
 def test_lbfgs_rosenbrock_golden():
@@ -74,13 +74,13 @@ def test_f32_converges_loosely():
 
 
 def test_bf16_history_still_converges():
-    """Mixed-precision history (TPU-build extension): quantized (s, y)
+    """Mixed-precision history (an extension): quantized (s, y)
     pairs degrade the direction slightly but the line search protects
     convergence; Rosenbrock must still reach the minimum."""
     import jax.numpy as jnp
 
-    from lbfgs_tpu import lbfgs
-    from lbfgs_tpu.models import rosenbrock
+    from lbfgs_jax import lbfgs
+    from lbfgs_jax.models import rosenbrock
 
     x0 = rosenbrock.initial_point(256, dtype=jnp.float32)
     rep = (
@@ -92,9 +92,9 @@ def test_bf16_history_still_converges():
     )
     assert rep.fx < 1e-4, rep.fx
     # and the history really is stored narrow
-    from lbfgs_tpu.core import ProblemDef
-    from lbfgs_tpu.params import LbfgsParams
-    from lbfgs_tpu.solver import init_state
+    from lbfgs_jax.core import ProblemDef
+    from lbfgs_jax.params import LbfgsParams
+    from lbfgs_jax.solver import init_state
 
     st = init_state(
         ProblemDef(value_and_grad=rosenbrock.value_and_grad),

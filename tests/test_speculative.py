@@ -1,4 +1,4 @@
-"""Speculative K-way backtracking (TPU-build extension, no reference
+"""Speculative K-way backtracking (an extension, no reference
 counterpart): the Armijo-only ladder's candidate steps stp·0.5^j are known
 upfront, so K candidates are evaluated per vmapped pass.  The contract is
 exact ladder equivalence with the sequential search — accepted step, ncall,
@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import lbfgs
-from lbfgs_tpu.core import ProblemDef
-from lbfgs_tpu.linesearch import backtracking, backtracking_speculative, find
-from lbfgs_tpu.models import rosenbrock
-from lbfgs_tpu.params import LineSearchAlgorithm, LineSearchParams
-from lbfgs_tpu.status import Status
+from lbfgs_jax import lbfgs
+from lbfgs_jax.core import ProblemDef
+from lbfgs_jax.linesearch import backtracking, backtracking_speculative, find
+from lbfgs_jax.models import rosenbrock
+from lbfgs_jax.params import LineSearchAlgorithm, LineSearchParams
+from lbfgs_jax.status import Status
 
 
 def _quad_pdef():

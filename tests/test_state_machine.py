@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu import Status, lbfgs
-from lbfgs_tpu.minimize import LbfgsState
-from lbfgs_tpu.models import rosenbrock
-from lbfgs_tpu.params import LbfgsParams
+from lbfgs_jax import Status, lbfgs
+from lbfgs_jax.minimize import LbfgsState
+from lbfgs_jax.models import rosenbrock
+from lbfgs_jax.params import LbfgsParams
 
 
 def test_first_propagate_reports_initial_point():

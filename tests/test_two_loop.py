@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.solver import make_history, two_loop_compact, two_loop_scan
+from lbfgs_jax.solver import make_history, two_loop_compact, two_loop_scan
 
 
 def _rand_hist(rng, m, n):
@@ -55,7 +55,7 @@ def test_compact_matches_scan(bound, end):
     d = jnp.asarray(rng.randn(n))
     gamma = jnp.float64(abs(rng.randn()) + 0.1)
     r1, a1 = two_loop_scan(hist, d, gamma, jnp.int32(bound), jnp.int32(end))
-    r2, a2, _, _ = two_loop_compact(hist, d, gamma, jnp.int32(bound), jnp.int32(end))
+    r2, a2 = two_loop_compact(hist, d, gamma, jnp.int32(bound), jnp.int32(end))
     np.testing.assert_allclose(np.asarray(r1), np.asarray(r2), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(np.asarray(a1), np.asarray(a2), rtol=1e-11, atol=1e-12)
 
@@ -65,15 +65,13 @@ def test_ring_major_storage_matches_flat(bound, end):
     """Lane-aligned n stores the history ring-major [m, n/128, 128]
     (core.hist_store_shape); results must match the flat [m, n] math."""
     rng = np.random.RandomState(bound + end)
-    # rows = n/128 must divide the (8-virtual-device) runtime for the
-    # ring-major layout to engage (core.hist_store_shape)
     m, n = 6, 1024
     hist = _rand_hist(rng, m, n)
     assert hist.s.ndim == 3 and hist.s.shape == (m, n // 128, 128)
     d = jnp.asarray(rng.randn(n))
     gamma = jnp.float64(0.9)
     r1, a1 = two_loop_scan(hist, d, gamma, jnp.int32(bound), jnp.int32(end))
-    r2, a2, _, _ = two_loop_compact(hist, d, gamma, jnp.int32(bound), jnp.int32(end))
+    r2, a2 = two_loop_compact(hist, d, gamma, jnp.int32(bound), jnp.int32(end))
     np.testing.assert_allclose(np.asarray(r1), np.asarray(r2), rtol=1e-12, atol=1e-12)
     order = [(end - i) % m for i in range(bound)][::-1]
     S2 = np.asarray(hist.s).reshape(m, n)

@@ -6,7 +6,7 @@ Mirrors the reference math unit test values (``src/math.rs:84-122``).
 import jax.numpy as jnp
 import numpy as np
 
-from lbfgs_tpu.ops import vecmath as vm
+from lbfgs_jax.ops import vecmath as vm
 
 
 def test_axpy():

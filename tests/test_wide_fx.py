@@ -1,16 +1,16 @@
 """Wide (f64) objective-scalar carry (``params.fx_wide``).
 
-The reference is f64 throughout (``src/math.rs:4-82``); the TPU build
+The reference is f64 throughout (``src/math.rs:4-82``); this build
 streams f32 vectors, which caps the objective scalar at ~7 digits — at
 the n = 1e8 OWL-QN scale the L1 term pins fx at ~4e7 where f32 cannot
 represent the Armijo sufficient-decrease differences (PERF.md).  The
-wide mode keeps every vector stream f32 but reduces the objective
-kernels' PER-BLOCK f32 partials in f64 outside the kernel and carries
-fx/finit/ft as f64 scalars.
+wide mode keeps every vector stream f32 but reduces PER-BLOCK f32
+partials of the objective in f64 and carries fx/finit/ft as f64
+scalars.
 
 These tests pin:
   * the mechanism — at many-block scale the wide reduction tracks the
-    exact f64 sum an order of magnitude closer than the f32 SMEM chain;
+    exact f64 sum an order of magnitude closer than one f32 total;
   * dtype flow — fx is f64 end-to-end through the line searches, solver
     state, and drivers while x/g/d stay f32;
   * no semantic drift — wide and default trajectories agree at f32
@@ -19,22 +19,17 @@ These tests pin:
   * the x64 guard.
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_tpu.core import ProblemDef
-from lbfgs_tpu.minimize import minimize_jit
-from lbfgs_tpu.models import rosenbrock
-from lbfgs_tpu.orthantwise import Orthantwise
-from lbfgs_tpu.ops import fused
-from lbfgs_tpu.params import LbfgsParams, LineSearchAlgorithm
-
-pytestmark = pytest.mark.skipif(not fused.HAVE_PALLAS, reason="pallas unavailable")
-
+from lbfgs_jax.core import ProblemDef
+from lbfgs_jax.minimize import minimize_jit
+from lbfgs_jax.models import rosenbrock
+from lbfgs_jax.orthantwise import Orthantwise
+from lbfgs_jax.ops import fused
+from lbfgs_jax.params import LbfgsParams, LineSearchAlgorithm
 
 def _exact_rosen(xt: np.ndarray) -> float:
     xt = np.asarray(xt, np.float64)
@@ -44,16 +39,20 @@ def _exact_rosen(xt: np.ndarray) -> float:
     return float(np.sum(np.where(even, t1 * t1 + t2 * t2, 0.0)))
 
 
-def test_wide_reduction_tracks_exact_f64(monkeypatch):
-    """At n = 2^22 with 512-row blocks (64 of them) and |fx| ~ 1e12 the
-    f32 SMEM cross-block chain drifts ~2e-7 rel from the exact sum; the
-    wide per-block-partial reduction stays within ~1e-8 (its residual is
-    the within-block f32 accumulation, by design).  The block size is
-    PINNED here: the round-5 1024-row default halves the block count,
-    which compresses exactly the cross-block-vs-within-block contrast
-    this test exists to measure."""
-    monkeypatch.setattr(fused, "BLOCK_ROWS", 512)
-    monkeypatch.setattr(fused, "_BLOCK_ROWS_EXPLICIT", True)
+def _serial_f32_sum(v) -> float:
+    """One f32 accumulator run left to right over the blocks' partial
+    order — the drift the wide mode removes."""
+    acc = np.float32(0.0)
+    for p in np.asarray(v, np.float32).reshape(-1, 2048).sum(axis=1, dtype=np.float32):
+        acc = np.float32(acc + p)
+    return float(acc)
+
+
+def test_wide_reduction_tracks_exact_f64():
+    """At n = 2^22 (2048 blocks) and |fx| ~ 1e12 an f32 cross-block chain
+    drifts from the exact sum; the wide per-block-partial reduction stays
+    within ~1e-8 (its residual is the within-block f32 accumulation, by
+    design)."""
     n = 1 << 22
     xp = np.asarray(rosenbrock.initial_point(n, dtype=jnp.float64)) + 10.0
     d = 0.001 * np.random.RandomState(0).randn(n)
@@ -63,11 +62,15 @@ def test_wide_reduction_tracks_exact_f64(monkeypatch):
         np.asarray(xpf, np.float64) + np.asarray(df, np.float64)
     )
 
-    ft32, _ = rosenbrock.probe_pallas(xpf, df, jnp.float32(1.0), interpret=True)
+    k = rosenbrock.value_and_grad.kernels
+    xt = np.asarray(xpf + df)
+    even = (np.arange(n) % 2) == 0
+    e = xt.astype(np.float32)
+    t1 = np.float32(1.0) - e
+    t2 = np.float32(10.0) * (np.roll(e, -1) - e * e)
+    ft32 = _serial_f32_sum(np.where(even, t1 * t1 + t2 * t2, np.float32(0.0)))
     with fused.wide_fx():
-        ft64, _ = rosenbrock.probe_pallas(
-            xpf, df, jnp.float32(1.0), interpret=True
-        )
+        ft64, _ = k.probe(xpf, df, jnp.float32(1.0))
     assert ft64.dtype == jnp.float64
     rel32 = abs(float(ft32) - exact) / exact
     rel64 = abs(float(ft64) - exact) / exact
@@ -77,16 +80,15 @@ def test_wide_reduction_tracks_exact_f64(monkeypatch):
 
 def test_wide_trial_matches_probe_bitwise():
     """The remat contract must hold in wide mode too: the probed ft
-    equals the materializing trial's fx bit-for-bit (same block shapes,
-    same accumulation order, same f64 reduce)."""
+    equals the materializing trial's fx bit-for-bit (same evaluation,
+    same f64 reduce)."""
     n = 1 << 18
     xp = rosenbrock.initial_point(n, dtype=jnp.float32)
     d = jnp.asarray(0.01 * np.random.RandomState(1).randn(n), jnp.float32)
+    k = rosenbrock.value_and_grad.kernels
     with fused.wide_fx():
-        ft, dgp = rosenbrock.probe_pallas(xp, d, jnp.float32(0.7), interpret=True)
-        _, fx, _, dg, *_ = rosenbrock.trial_pallas(
-            xp, d, jnp.float32(0.7), interpret=True
-        )
+        ft, dgp = k.probe(xp, d, jnp.float32(0.7))
+        _, fx, _, dg, *_ = k.trial(xp, d, jnp.float32(0.7))
     assert float(ft) == float(fx)
     assert float(dgp) == float(dg)
     assert ft.dtype == fx.dtype == jnp.float64
@@ -95,6 +97,7 @@ def test_wide_trial_matches_probe_bitwise():
 def test_wide_owlqn_trial_kernel():
     """OWL-QN trial under wide: raw-fx AND L1 partials reduce in f64 (the
     L1 term is the dominant magnitude at scale); matches the f64 oracle."""
+    k = rosenbrock.value_and_grad.kernels
     n = 1 << 18
     rng = np.random.RandomState(2)
     xp = jnp.asarray(rng.randn(n) * 3.0, jnp.float32)
@@ -102,12 +105,10 @@ def test_wide_owlqn_trial_kernel():
     wp = jnp.sign(xp)
     c, lo, hi = 1.0, 0, n - 1
     with fused.wide_fx():
-        xt, ft, g, dg, xx, changed = rosenbrock.owlqn_trial_pallas(
-            xp, d, wp, jnp.float32(1.0), c, lo, hi, interpret=True
+        xt, ft, g, dg, xx, changed = k.owlqn_trial(
+            xp, d, wp, jnp.float32(1.0), c, lo, hi
         )
-        ftp, dgp = rosenbrock.owlqn_probe_pallas(
-            xp, d, wp, jnp.float32(1.0), c, lo, hi, interpret=True
-        )
+        ftp, dgp = k.owlqn_probe(xp, d, wp, jnp.float32(1.0), c, lo, hi)
     assert ft.dtype == jnp.float64
     assert float(ftp) == float(ft)  # remat contract
     # f64 oracle on the f32 trial point
@@ -129,17 +130,13 @@ def _run(n, wide, ow=None, iters=12, algo=None):
     return minimize_jit(params, x0, rosenbrock.value_and_grad, return_state=True)
 
 
-def test_wide_end_to_end_morethuente(monkeypatch):
-    """Whole-run jitted driver on the kernel hot path (trial + probe +
-    trial_pair_gram + combine_probe all active, interpret mode): wide fx
-    is f64, vectors stay f32, and the trajectory agrees with the default
-    run at f32 tolerance."""
-    monkeypatch.setenv("LBFGS_TPU_KERNELS_INTERPRET", "1")
-    monkeypatch.setenv(
-        "LBFGS_TPU_KERNELS", "trial,pair_gram,combine,combine_probe"
-    )
-    n = fused.MIN_FUSED_N
+def test_wide_end_to_end_morethuente(epilogue_interpret):
+    """Whole-run jitted driver on the fused-epilogue hot path (interpret
+    mode): wide fx is f64, vectors stay f32, and the trajectory agrees
+    with the default run at f32 tolerance."""
+    n = 1 << 14
     st_w = _run(n, True)
+    assert epilogue_interpret, "the epilogue did not engage"
     st_d = _run(n, False)
     assert st_w.prob.fx.dtype == jnp.float64
     assert st_w.prob.x.dtype == jnp.float32
@@ -149,11 +146,10 @@ def test_wide_end_to_end_morethuente(monkeypatch):
     assert float(st_w.prob.fx) == pytest.approx(float(st_d.prob.fx), rel=1e-3)
 
 
-def test_wide_end_to_end_owlqn(monkeypatch):
-    """OWL-QN (Armijo ladder + xg pair kernel + OW combine) under wide:
-    f64 fx end-to-end, trajectory at f32 tolerance vs the default run."""
-    monkeypatch.setenv("LBFGS_TPU_KERNELS_INTERPRET", "1")
-    n = fused.MIN_FUSED_N
+def test_wide_end_to_end_owlqn():
+    """OWL-QN (Armijo ladder) under wide: f64 fx end-to-end, trajectory
+    at f32 tolerance vs the default run."""
+    n = 1 << 14
     ow = Orthantwise(c=1.0, start=0, end=n - 1)
     st_w = _run(n, True, ow=ow)
     st_d = _run(n, False, ow=ow)
@@ -167,7 +163,7 @@ def test_wide_end_to_end_owlqn(monkeypatch):
 def test_wide_host_driver_and_generic_objective():
     """Step-at-a-time driver + generic (non-kernel) jnp objective: the
     evaluate boundary (core.evaluate + obj_sum two-stage) carries f64."""
-    from lbfgs_tpu.minimize import LbfgsState
+    from lbfgs_jax.minimize import LbfgsState
 
     params = LbfgsParams(fx_wide=True, max_iterations=10)
     x0 = rosenbrock.initial_point(100, dtype=jnp.float32)
@@ -185,8 +181,8 @@ def test_wide_without_x64_uses_df_carry():
     objective scalar carries as a double-float (two-f32) pair instead of
     silently downgrading to f32 (see tests/test_df_fx.py for the full
     equivalence pins)."""
-    from lbfgs_tpu.ops import df
-    from lbfgs_tpu.solver import init_state
+    from lbfgs_jax.ops import df
+    from lbfgs_jax.solver import init_state
 
     pdef = ProblemDef(value_and_grad=rosenbrock.value_and_grad)
     params = LbfgsParams(fx_wide=True)
